@@ -1,7 +1,7 @@
 // Native track store: union-find merging of two-view matches into
 // multi-view feature tracks.
 //
-// This is the TPU engine's equivalent of the reference's GlobalSet
+// This is the engine's equivalent of the reference's GlobalSet
 // (reference GlobalSet.py:22-172): a hash map from 2-D observations
 // (image, x, y) to track ids, with threshold-gated merging and
 // invalidate-on-violation semantics.  It is the single inherently

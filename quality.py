@@ -33,7 +33,7 @@ Criteria (rationale in QUALITY.md):
      dino-8, so ours->ref distances measure extra coverage, not error).
   5. seed envelope — at least as many seeds as the reference.
 
-Usage: python quality.py [--out QUALITY.json]   (default env: TPU)
+Usage: python quality.py [--out QUALITY.json]   (runs on JAX's default backend)
 """
 import argparse
 import json
@@ -141,13 +141,13 @@ def _dino(n_frames=None):
     return images, calib.subset(range(images.shape[0]))
 
 
-def _ba_solver_parity(ref_rms: float) -> dict:
-    """Run our LM/Schur solver on the reference's exact captured BA problem."""
+def load_ba_problem(dtype=None):
+    """The reference's exact captured dino48 BA problem, in our 12-param
+    camera model: (BAProblem at the reference's start point, reference
+    solution cams, reference solution points)."""
     import jax.numpy as jnp
 
     from sfm_tpu.ba.problem import BAProblem
-    from sfm_tpu.ba.solver import solve_lm
-    from sfm_tpu.ba.model import total_cost
 
     z = np.load(os.path.join(ROOT, "quality_data", "ref",
                              "dino48_ba_problem.npz"))
@@ -165,7 +165,7 @@ def _ba_solver_parity(ref_rms: float) -> dict:
 
     cams0, pts0 = unpack(x0)
     camsf, ptsf = unpack(xf)
-    dt = jnp.float32
+    dt = dtype or jnp.float32
     prob = BAProblem(
         cams=jnp.asarray(cams0, dt), points=jnp.asarray(pts0, dt),
         cam_idx=jnp.asarray(z["cam_idx"], jnp.int32),
@@ -173,6 +173,18 @@ def _ba_solver_parity(ref_rms: float) -> dict:
         obs_2d=jnp.asarray(z["pts2d"], dt),
         mask=jnp.ones(z["cam_idx"].shape[0], bool),
     )
+    return prob, jnp.asarray(camsf, dt), jnp.asarray(ptsf, dt)
+
+
+def _ba_solver_parity(ref_rms: float, pair_span: int = 0) -> dict:
+    """Run our LM/Schur solver on the reference's exact captured BA problem.
+
+    ``pair_span`` picks the joint camera solver: 0 = matrix-free PCG,
+    1 = dense reduced camera system + Cholesky (ba.solver)."""
+    from sfm_tpu.ba.solver import solve_lm
+    from sfm_tpu.ba.model import total_cost
+
+    prob, camsf, ptsf = load_ba_problem()
     n_obs = prob.num_observations
 
     def rms_of(cost):
@@ -182,16 +194,17 @@ def _ba_solver_parity(ref_rms: float) -> dict:
     # reference's SOLUTION must reproduce its final rms (proves the 12-param
     # model embeds the reference's 11-param one exactly).
     cost_at_ref = total_cost(
-        jnp.asarray(camsf, dt), jnp.asarray(ptsf, dt),
-        prob.cam_idx, prob.point_idx, prob.obs_2d, prob.mask,
+        camsf, ptsf, prob.cam_idx, prob.point_idx, prob.obs_2d, prob.mask,
     )
     model_check_rms = rms_of(cost_at_ref)
 
     cams, pts, cost, iters = solve_lm(
-        prob, max_iterations=100, ftol=1e-6, optimize_cameras=True
+        prob, max_iterations=100, ftol=1e-6, optimize_cameras=True,
+        pair_span=pair_span,
     )
     ours_rms = rms_of(cost)
     return {
+        "camera_solver": "dense_schur" if pair_span else "pcg",
         "model_check_rms_at_ref_solution": model_check_rms,
         "reference_rms": ref_rms,
         "ours_rms": ours_rms,

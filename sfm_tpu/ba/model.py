@@ -6,7 +6,7 @@ packing at SFM.py:143-148): [rvec(3), t(3), fx, fy, k1, k2, px, py].  Residuals
 are (projected - observed) per observation (BundleAdjustment.py:42-56).
 
 Where the reference relies on scipy TRF's sparse finite differences over a
-hand-built lil_matrix sparsity pattern (BundleAdjustment.py:58-72), the TPU
+hand-built lil_matrix sparsity pattern (BundleAdjustment.py:58-72), this
 engine gets exact per-observation Jacobian blocks dr/dcam (2x12) and
 dr/dpoint (2x3) from one vmapped ``jax.jacfwd`` — the block structure the
 Schur solver consumes directly, no sparse matrix materialized.

@@ -4,8 +4,9 @@ Distribution design (SURVEY.md §5/§7, BASELINE north-star): observations —
 the only O(problem-size) axis — are sharded across the mesh's "data" axis;
 cameras and points are replicated.  Every reduction the LM loop needs
 (normal-equation blocks U/V/b, the Schur RHS, each CG matvec's two segment
-sums, the cost) becomes segment_sum-then-psum, so partial sums ride ICI and
-no device ever materializes more than its observation shard.  The entire LM
+sums, the cost) becomes segment_sum-then-psum, so partial sums ride the
+interconnect and no device ever materializes more than its observation
+shard.  The entire LM
 while_loop runs *inside* shard_map: one compiled SPMD program, zero host
 round-trips during the solve.
 
@@ -117,8 +118,8 @@ def solve_lm_sharded(
     """Distributed LM over ``mesh`` (1-D, axis "data").
 
     ``pair_span > 0`` selects the dense reduced-camera-system path (one
-    psum of S per LM iteration instead of 2 psums per CG iteration — the
-    latency-bound term in tools/comm_model.py's 2-host projection); shards
+    psum of S per LM iteration instead of 2 psums per CG iteration, whose
+    latency bounds the PCG path across devices); shards
     are then cut at track boundaries so pair enumeration stays local.
 
     Returns (cams, points, final_cost, iterations), all replicated.

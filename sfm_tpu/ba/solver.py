@@ -1,7 +1,7 @@
 """Levenberg-Marquardt bundle adjustment with a matrix-free Schur complement.
 
 Replaces ``scipy.optimize.least_squares(method='trf', jac_sparsity=A)``
-(reference SFM.py:172-177) with a TPU-native design:
+(reference SFM.py:172-177) with a batched, static-shape design:
 
 - exact per-observation Jacobian blocks (ba.model) instead of sparse finite
   differences;
@@ -96,7 +96,7 @@ def _schur_matvec(x, blocks, Vinv, problem, axis_name=None):
 
     S = U_λ − Σ_p W̃_p V_λp^{-1} W̃_p^T with W̃_p the stacked per-camera
     coupling of point p; each product is three segment passes (sharded:
-    two psums over the data axis, riding ICI).
+    two psums over the data axis, riding the interconnect).
     """
     cam_idx = problem.cam_idx
     point_idx = problem.point_idx
@@ -160,11 +160,10 @@ def _dense_schur_dc(problem, W, Vinv, U_lam, g, axis_name=None):
     S = U_λ − Σ_p W̃_p V_λp^{-1} W̃_pᵀ.  Round-3's version enumerated
     same-point observation pairs with ``pair_span − 1`` trace-time-unrolled
     shifted segment_sum passes; at dino48 shapes (span ≈ 40) that program
-    faulted the TPU worker (kernel fault, chip wedged ~35 min — VERDICT r3
-    Weak #1).  This formulation has NO unrolling and no pair ordering:
+    faulted the accelerator (VERDICT r3 Weak #1).  This formulation has NO unrolling and no pair ordering:
     since each point is observed at most once per camera, scatter
     A = W V_λ^{-1} and W into dense (T, Nc, 12, 3) grids and contract the
-    point axis with ONE MXU matmul — (12·Nc, 3·T) × (3·T, 12·Nc) — which
+    point axis with ONE matmul — (12·Nc, 3·T) × (3·T, 12·Nc) — which
     lands directly in the packed S2 layout.  Program size is independent of
     track length, so the ``dense_schur_max_span`` cap is no longer a
     correctness bound.  Masked/padded observations have zero W rows, so
@@ -174,8 +173,8 @@ def _dense_schur_dc(problem, W, Vinv, U_lam, g, axis_name=None):
     (ba.sharded.shard_problem(track_aligned=True)) every point's
     cross-camera products complete within one shard, so the per-shard
     matmuls psum into the exact S — ONE (12·Nc)² collective per LM
-    iteration instead of 2 psums per CG iteration (the DCN-latency-bound
-    term in tools/comm_model.py's 2-host projection).
+    iteration instead of 2 psums per CG iteration (the latency-bound term
+    of the sharded PCG path).
 
     Viable for small-to-medium camera counts (S is (12·Nc)²; the caller
     gates on BaConfig.dense_schur_max_cams).  A non-PD S (extreme f32

@@ -17,7 +17,7 @@ import sys
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="TPU-native structure-from-motion + multi-view stereo"
+        description="Batched structure-from-motion + multi-view stereo in JAX"
     )
     # Reference flags (main.py:33-42).
     p.add_argument("-img_p", "--image_path", required=True,
@@ -64,7 +64,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "padded to a standard ladder so new datasets reuse "
                         "compiled programs; outputs identical either way)")
     p.add_argument("--ba_dtype", default=None,
-                   help="float32|float64 (default: f64 on cpu, f32 on tpu)")
+                   help="float32|float64 (default: float32 on the GPU, "
+                        "float64 on the CPU; float64 is CPU-only)")
     # Orchestration.
     p.add_argument("--stages", default="sfm,ba,mvs",
                    help="comma list from {sfm,ba,mvs}")
@@ -89,13 +90,9 @@ def config_from_args(args):
         PipelineConfig, FeatureConfig, SfmConfig, BaConfig, MvsConfig,
         RuntimeConfig,
     )
-    import jax
+    from sfm_tpu.utils.platform import resolve_ba_dtype
 
-    ba_dtype = args.ba_dtype or (
-        "float32" if jax.default_backend() == "tpu" else "float64"
-    )
-    if ba_dtype == "float64" and jax.default_backend() != "tpu":
-        jax.config.update("jax_enable_x64", True)
+    ba_dtype = resolve_ba_dtype(args.ba_dtype)
     return PipelineConfig(
         image_path=args.image_path,
         par_path=args.par_path,
@@ -204,6 +201,9 @@ def _main(argv=None) -> int:
         recon.export_ply(os.path.join(args.out_dir, "sparse_points.ply"))
         summary["sparse_tracks"] = recon.num_tracks
         summary["sparse_mean_reproj_px"] = mean_reproj
+        for key in ("mean_pair_reprojection_error_px", "track_store_backend"):
+            if key in recon.metrics.values:
+                summary[key] = recon.metrics.values[key]
         if args.debug and recon.debug_pairs is not None:
             from sfm_tpu.utils.viz import draw_epipolar_debug
 

@@ -14,13 +14,8 @@ import jax
 import jax.numpy as jnp
 
 from sfm_tpu.config import FeatureConfig
-from sfm_tpu.ops.gather import (
-    sample_normalized_patches,
-    supports_or_note as _gather_ok,
-)
 from sfm_tpu.ops.harris import detect_corners
 from sfm_tpu.ops.patches import extract_patches, normalize_descriptors
-from sfm_tpu.utils.platform import use_pallas as _use_pallas
 
 
 @jax.tree_util.register_dataclass
@@ -46,14 +41,12 @@ class FeatureSet:
 
 
 def detect_and_describe(
-    gray, config: FeatureConfig = FeatureConfig(), use_pallas=None
+    gray, config: FeatureConfig = FeatureConfig()
 ) -> FeatureSet:
     """(N, H, W) grayscale -> FeatureSet with top-K corners per image."""
-    # border = wid + 1 (not wid): keeps every surviving corner's patch
-    # window strictly interior, so the Pallas slab-gather path (whose
-    # bilinear support needs one extra pixel) and the XLA integer-gather
-    # path extract IDENTICAL patches — one uniform corner set on both
-    # backends at the cost of the outermost 1-px ring of candidate corners.
+    # border = wid + 1 (not wid): every surviving corner's patch window,
+    # bilinear support included, lies strictly inside the image, so the
+    # descriptor read never needs clipping.
     corners, valid, _ = detect_corners(
         gray,
         max_corners=config.max_corners,
@@ -61,25 +54,9 @@ def detect_and_describe(
         rel_threshold=config.harris_rel_threshold,
         border=config.desc_wid + 1,
         k=config.harris_k,
-        use_pallas=use_pallas,
     )
-    if _use_pallas(use_pallas) and _gather_ok(
-        gray.shape[2], config.desc_wid, "features.detect_and_describe"
-    ):
-        # Slab-gather kernel (ops/gather.py): ~6x the XLA slice-gather rate
-        # at (48, 1024) corners.  Integer centers -> fx = fy = 0, so the
-        # bilinear taps reduce to exact pixel reads.
-        n, k = corners.shape[0], corners.shape[1]
-        img_idx = jnp.broadcast_to(
-            jnp.arange(n, dtype=jnp.int32)[:, None], (n, k)
-        )
-        desc, inb = sample_normalized_patches(
-            gray, img_idx, corners.astype(jnp.float32), config.desc_wid
-        )
-        desc = desc.astype(jnp.float32)
-    else:
-        patches, inb = extract_patches(gray, corners, wid=config.desc_wid)
-        desc = normalize_descriptors(patches)
+    patches, inb = extract_patches(gray, corners, wid=config.desc_wid)
+    desc = normalize_descriptors(patches)
     valid = valid & inb
     # Zero out invalid descriptors so they can never win a correlation.
     desc = jnp.where(valid[..., None], desc, 0.0)

@@ -1,4 +1,4 @@
-"""Descriptor matching on the MXU.
+"""Descriptor matching as one matmul.
 
 Replaces the reference's FLANN kNN (k=2) + Lowe ratio 0.7 + min-8-matches
 gate (utils.py:180-204) and the dormant two-process two-sided NCC matcher
@@ -57,8 +57,7 @@ def match_descriptors(
     s = jnp.where(valid1[:, None] & valid2[None, :], s, _NEG)
 
     # Best + second-best via three row reductions instead of top_k(k=2):
-    # XLA lowers top_k as a full row sort on TPU — orders of magnitude more
-    # work than max/argmax passes over the (K1, K2) score matrix.
+    # max/argmax passes over the (K1, K2) score matrix never sort a row.
     best = jnp.max(s, axis=1)
     j_best = jnp.argmax(s, axis=1)
     masked = jnp.where(

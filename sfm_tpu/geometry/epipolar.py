@@ -67,7 +67,7 @@ def eight_point(pts1, pts2, weights=None):
     A = A * weights[..., None]
     AtA = jnp.einsum("...ki,...kj->...ij", A, A)
     # Null vector via batched inverse iteration (geometry.nullvec) — far
-    # faster than jnp.linalg.eigh for tens of thousands of 9x9s on TPU.
+    # cheaper than a full jnp.linalg.eigh for tens of thousands of 9x9s.
     f = smallest_eigvec(AtA)
     F = f.reshape(*f.shape[:-1], 3, 3)
     # Rank-2 enforcement: subtract the smallest singular triplet.  With v3

@@ -1,10 +1,8 @@
 """Closed-form batched small-matrix solves.
 
-XLA's generic ``jnp.linalg.solve``/``inv`` on batched tiny matrices is
-catastrophically slow on TPU (measured ~1.2 s for 2048 3x3 solves — it
-lowers to sequential LU custom calls, not vectorized math).  The 3x3 case
-has a cheap closed form (adjugate / Cramer) that is pure elementwise VPU
-work: ~microseconds for the same batch.  Used by triangulation refinement
+XLA's generic ``jnp.linalg.solve``/``inv`` on batched tiny matrices lowers
+to LU factorisation calls, not vectorized math.  The 3x3 case has a cheap
+closed form (adjugate / Cramer) that is pure elementwise work.  Used by triangulation refinement
 and the BA point-block (V^-1) path.
 """
 

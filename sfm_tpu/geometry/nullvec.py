@@ -1,10 +1,9 @@
 """Smallest-eigenvector extraction for small batched symmetric matrices.
 
 DLT triangulation (4x4) and the weighted 8-point solver (9x9) both need the
-eigenvector of the SMALLEST eigenvalue of a PSD normal matrix.  TPU's
-``jnp.linalg.eigh`` on huge batches of tiny matrices is pathologically slow
-(hundreds of ms for ~100k 4x4s — it runs a general Jacobi sweep per matrix);
-these problems only need a few inverse-iteration steps:
+eigenvector of the SMALLEST eigenvalue of a PSD normal matrix.
+``jnp.linalg.eigh`` on huge batches of tiny matrices runs a general
+eigensolver per matrix; these problems only need a few inverse-iteration steps:
 
     factor  M + eps*I = L L^T        (Cholesky, unrolled over the static k)
     iterate v <- normalize((L L^T)^{-1} v)

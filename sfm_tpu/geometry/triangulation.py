@@ -53,8 +53,8 @@ def triangulate_dlt(P, pixels, mask=None):
     A = A / jnp.maximum(norms, _EPS)
     AtA = jnp.einsum("...ki,...kj->...ij", A, A)
     # Null vector = eigenvector of the smallest eigenvalue.  Batched inverse
-    # iteration (geometry.nullvec): ~15x faster than jnp.linalg.eigh on
-    # ~100k 4x4s on TPU, identical result for DLT's near-singular spectra.
+    # iteration (geometry.nullvec): cheaper than jnp.linalg.eigh on ~100k
+    # 4x4s, identical result for DLT's near-singular spectra.
     X = smallest_eigvec(AtA)
     w = X[..., 3]
     denom = jnp.where(jnp.abs(w) < _EPS, jnp.where(w < 0, -_EPS, _EPS), w)
@@ -64,8 +64,8 @@ def triangulate_dlt(P, pixels, mask=None):
 def refine_triangulation(P, pixels, X, mask=None, iters: int = 2):
     """Gauss-Newton refinement of triangulated points on reprojection error.
 
-    The f32 eigh-based DLT carries ~1 px reprojection error on TPU (the
-    normal equations square the conditioning); two GN steps on the actual
+    The f32 eigh-based DLT carries ~1 px reprojection error (the normal
+    equations square the conditioning); two GN steps on the actual
     reprojection residual restore sub-0.1 px accuracy in f32 — needed for
     the reference's 0.3 px acceptance gate (SFM.py:78) to behave like its
     f64 CPU counterpart.

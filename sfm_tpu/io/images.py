@@ -1,9 +1,11 @@
 """Image loading.
 
 The reference globs ``{img_path}/*.{type}``, sorts, and loads BGR->RGB via
-OpenCV (reference main.py:7-20).  We use PIL (no cv2 dependency) and return a
-single stacked uint8 array — all views share one static (H, W) shape, which is
-what the batched TPU pipeline requires.
+OpenCV (reference main.py:7-20).  Binary PNM (P5 gray / P6 color: ``.pgm``,
+``.ppm``, ``.pnm``) is read and written here with numpy alone; other formats
+(PNG, JPEG, ...) go through PIL, imported only for them.  Returns a single
+stacked uint8 array — all views share one static (H, W) shape, which is
+what the batched device pipeline requires.
 """
 
 from __future__ import annotations
@@ -13,7 +15,87 @@ import os
 from typing import List, Optional, Tuple
 
 import numpy as np
-from PIL import Image
+
+PNM_TYPES = ("ppm", "pgm", "pnm")
+
+
+def _pnm_tokens(data: bytes, count: int) -> Tuple[List[int], int]:
+    """First ``count`` whitespace-separated header fields (``#`` comments
+    skipped) and the offset just past the single whitespace byte that ends
+    the header."""
+    fields: List[int] = []
+    i = 2  # past the magic number
+    while len(fields) < count:
+        while i < len(data) and data[i : i + 1].isspace():
+            i += 1
+        if data[i : i + 1] == b"#":
+            while i < len(data) and data[i : i + 1] not in (b"\n", b"\r"):
+                i += 1
+            continue
+        j = i
+        while j < len(data) and not data[j : j + 1].isspace():
+            j += 1
+        if j == i:
+            raise ValueError("truncated PNM header")
+        fields.append(int(data[i:j]))
+        i = j
+    return fields, i + 1
+
+
+def read_pnm(path: str) -> np.ndarray:
+    """Binary PGM (P5) -> (H, W) or PPM (P6) -> (H, W, 3), uint8.
+
+    Samples with a maxval other than 255 (16-bit included) are rescaled
+    to [0, 255]."""
+    with open(path, "rb") as f:
+        data = f.read()
+    magic = data[:2]
+    if magic not in (b"P5", b"P6"):
+        raise ValueError(f"{path}: not a binary PGM/PPM (magic {magic!r})")
+    (w, h, maxval), off = _pnm_tokens(data, 3)
+    if not 0 < maxval < 65536:
+        raise ValueError(f"{path}: bad PNM maxval {maxval}")
+    channels = 3 if magic == b"P6" else 1
+    dtype = np.dtype(">u2") if maxval > 255 else np.dtype(np.uint8)
+    n = w * h * channels
+    if len(data) - off < n * dtype.itemsize:
+        raise ValueError(f"{path}: PNM pixel data truncated")
+    img = np.frombuffer(data, dtype, count=n, offset=off)
+    if maxval != 255:
+        img = np.rint(img.astype(np.float64) * (255.0 / maxval))
+    img = img.astype(np.uint8)
+    return img.reshape((h, w, 3) if channels == 3 else (h, w))
+
+
+def write_pnm(path: str, img: np.ndarray) -> None:
+    """(H, W) uint8 -> binary PGM (P5); (H, W, 3) uint8 -> binary PPM (P6)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim == 2:
+        magic = b"P5"
+    elif img.ndim == 3 and img.shape[2] == 3:
+        magic = b"P6"
+    else:
+        raise ValueError(f"PNM needs (H, W) or (H, W, 3), got {img.shape}")
+    h, w = img.shape[:2]
+    with open(path, "wb") as f:
+        f.write(magic + b"\n%d %d\n255\n" % (w, h))
+        f.write(img.tobytes())
+
+
+def _read_rgb(path: str, image_type: str) -> np.ndarray:
+    if image_type.lower() in PNM_TYPES:
+        img = read_pnm(path)
+        return np.repeat(img[..., None], 3, axis=-1) if img.ndim == 2 else img
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            f"reading .{image_type} images needs Pillow, which is not "
+            f"installed; binary {'/'.join(PNM_TYPES)} images are read "
+            "without it"
+        ) from e
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"), dtype=np.uint8)
 
 
 def load_images(
@@ -30,10 +112,7 @@ def load_images(
         paths = paths[:max_images]
     if not paths:
         raise FileNotFoundError(f"no *.{image_type} images in {image_dir}")
-    imgs = []
-    for p in paths:
-        with Image.open(p) as im:
-            imgs.append(np.asarray(im.convert("RGB"), dtype=np.uint8))
+    imgs = [_read_rgb(p, image_type) for p in paths]
     shapes = {a.shape for a in imgs}
     if len(shapes) != 1:
         raise ValueError(f"images have differing shapes: {shapes}")
@@ -67,10 +146,9 @@ def device_gray(images: np.ndarray, pad_to: int = 0):
     the raw image count — a new dataset in a seen bucket compiles nothing
     (utils/buckets.py).
 
-    SfM and MVS both consume the same stack; over a remote-TPU link every
-    transferred byte counts, so grayscale is computed on the HOST, quantized
-    to uint8 (exactly what the reference's cv2.cvtColor produces,
-    utils.py:169-170), and shipped as (N, H, W) uint8 — 3x less traffic than
+    SfM and MVS both consume the same stack, so grayscale is computed on
+    the HOST, quantized to uint8 (exactly what the reference's cv2.cvtColor
+    produces, utils.py:169-170), and shipped as (N, H, W) uint8 — 3x less traffic than
     the RGB stack, which never needs to reach the device (patch colors are
     sampled host-side from the original images).  Cached by identity PLUS a
     content fingerprint (see _cache_key), so in-place mutation or id reuse

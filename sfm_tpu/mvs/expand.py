@@ -4,7 +4,7 @@ The reference's dominant hot loop (patch_expansion, MVS2.py:308-404): a FIFO
 of patches, each popping up to |V|*4 candidate cells, each candidate costing
 N_images NCC tests in interpreted Python, capped at 100k iterations.
 
-TPU re-formulation (SURVEY.md §7): *rounds*.  Each round takes the whole
+Batched re-formulation (SURVEY.md §7): *rounds*.  Each round takes the whole
 frontier (patches accepted last round), enumerates every (hit, diagonal
 neighbor) candidate cell at once, back-projects cell centers, intersects the
 parent patch planes, scores the entire candidate batch with one
@@ -52,13 +52,11 @@ def ordered_compact(flags, cap: int, fill):
 
     Round-5 negative result, kept as the recorded experiment: the
     cumsum+scatter formulation below was hypothesized to beat nonzero's
-    ~20 ns/flag scan at the round's 524,288-flag compaction, but measures
-    SLOWER in isolation on v5e (6.71 ms vs nonzero's 4.83 ms at 25% set
-    density, amortized dispatch) and neutral end-to-end — nonzero's actual
-    lowering here is cheaper than the linear model CLAUDE.md records for
-    other shapes.  Production code therefore keeps jnp.nonzero; this stays
-    equality-tested (tests/test_mvs.py) for shapes where the trade may
-    differ."""
+    scan at the round's 524,288-flag compaction, but measured slower in
+    isolation on the accelerator it was first tried on, and neutral end to
+    end.  Production code therefore keeps jnp.nonzero; this stays
+    equality-tested (tests/test_mvs.py) until the GPU measures the trade
+    (ROADMAP D6)."""
     n = flags.shape[0]
     pos = jnp.cumsum(flags.astype(jnp.int32)) - 1
     tgt = jnp.where(flags & (pos < cap), pos, cap)
@@ -94,11 +92,11 @@ def _make_round_program(
             )
 
         # Chunk several rounds into ONE device program (lax.scan over the
-        # frontier/occupancy carry): over a remote TPU each host round trip
-        # costs a fetch + dispatch, so amortizing them across rounds is an
-        # easy ~10% on the whole MVS stage.  An empty frontier mid-chunk
-        # produces all-invalid rounds downstream — harmless, the host stops
-        # at the first empty round it sees in the stacked payload.
+        # frontier/occupancy carry): each host round trip costs a fetch +
+        # dispatch, so this amortizes them across rounds.  An empty
+        # frontier mid-chunk produces all-invalid rounds downstream —
+        # harmless, the host stops at the first empty round it sees in the
+        # stacked payload.
         def one(carry, _):
             occ, fc, fn, fvis, fproj, fvalid = carry
             accepted, occ2, packed = _expansion_round_impl(
@@ -191,9 +189,9 @@ def _expansion_round_impl(
     # expand the 4 diagonal offsets.  With the view gate a frontier row has
     # at most max_photo_views - 1 visible entries out of N (the reference
     # view is never in its own visible set), so the hit list is a row-wise
-    # ``top_k`` over view-index weights — ~2 ms at production shapes, where
-    # a nonzero compaction over the dense (F*N,) flag space costs ~30 ms
-    # (tools/prof_round3.py; nonzero is O(flags scanned), top_k is O(F*K)).
+    # ``top_k`` over view-index weights instead of a nonzero compaction over
+    # the dense (F*N,) flag space (tools/prof_round3.py; nonzero is
+    # O(flags scanned), top_k is O(F*K)).
     # Weights DESCEND with view index so hits emerge view-ascending — the
     # same patch-major/view-ascending order the flat enumeration produced,
     # which the scatter-min dedup tie-breaks on (first-come), so winners are
@@ -274,14 +272,9 @@ def _expansion_round_impl(
     # --- Photo-consistency for the whole batch (sharded over candidates
     # when a mesh is given: the round's dominant cost). ---
     c_new = _shard_constraint(c_new, mesh)
-    # Under a mesh the Pallas slab-gather kernel runs per-device via
-    # shard_map over the candidate batch (ops/gather.py: GSPMD cannot split
-    # the opaque pallas custom call, so round 3 pinned use_pallas=False
-    # here and every chip ran the ~6x-slower XLA gather — VERDICT r3
-    # Weak #4); the rest of the round stays GSPMD-partitioned.
     vis, proj, score, cnt = photo_consistency(
         gray, K, R, t, c_new, img, config.min_ncc_expand, config.patch_wid,
-        photo_views, mesh=mesh,
+        photo_views,
     )
     vis = _shard_constraint(vis, mesh)
     proj = _shard_constraint(proj, mesh)

@@ -24,25 +24,19 @@ import jax
 import jax.numpy as jnp
 
 from sfm_tpu.geometry.projection import project_pinhole
-from sfm_tpu.ops.gather import (
-    sample_normalized_patches,
-    sample_normalized_patches_sharded,
-    supports_or_note as _gather_ok,
-)
 from sfm_tpu.ops.ncc import (
     bilinear_sample_patches,
     bilinear_sample_patches_stack,
 )
 from sfm_tpu.ops.patches import normalize_descriptors
-from sfm_tpu.utils.platform import use_pallas as _use_pallas
 
 
 def pack_patch_payload(c, n, score, ref_pix, ref_idx, valid):
     """Fuse the per-patch host-bound outputs into one (M, 11) float32 array.
 
-    Over a remote-TPU link each device->host fetch pays a large fixed
-    latency; packing [c(3) | n(3) | score | u | v | ref | valid] lets the
-    host loop retrieve a whole round's results in a single small transfer.
+    Packing [c(3) | n(3) | score | u | v | ref | valid] lets the host loop
+    retrieve a whole round's results in a single small device->host
+    transfer.
     (u, v) is the patch's projection in its reference view ``ref`` — the
     host samples the patch COLOR there from the original images it already
     holds (the reference samples int pixel colors, MVS2.py:119-120), so the
@@ -88,7 +82,7 @@ def _thr_col(min_ncc):
 
 
 @functools.partial(
-    jax.jit, static_argnames=("wid", "max_views", "use_pallas", "mesh")
+    jax.jit, static_argnames=("wid", "max_views")
 )
 def photo_consistency(
     gray,            # (N, H, W) float32 grayscale stack
@@ -98,8 +92,6 @@ def photo_consistency(
     min_ncc: float,
     wid: int = 5,
     max_views: int = 0,
-    use_pallas=None,
-    mesh=None,       # multi-device: shard_map the Pallas gather over M
 ):
     """Score M candidates against all N views.
 
@@ -122,13 +114,9 @@ def photo_consistency(
       vis_count: (M,) int32 number of visible (non-reference) views.
     """
     n_img = gray.shape[0]
-    pallas = _use_pallas(use_pallas) and _gather_ok(
-        gray.shape[2], wid, "mvs.photo_consistency"
-    )
     if 0 < max_views < n_img:
         return _photo_consistency_gated(
-            gray, K, R, t, centers, ref_idx, min_ncc, wid, max_views, pallas,
-            mesh,
+            gray, K, R, t, centers, ref_idx, min_ncc, wid, max_views
         )
     m = centers.shape[0]
     side2 = (2 * wid + 1) ** 2
@@ -144,35 +132,19 @@ def photo_consistency(
     # footprint), the reference row is then just a take_along_axis, and NCC
     # for all views is a single batched contraction.  This halves the gather
     # work vs. a separate reference-sampling pass.  The stack is sampled in
-    # bf16: ~20% faster gather, and its ~half-ULP-of-a-pixel quantization is
-    # the same scale as the uint8 grayscale rounding already applied.
-    # On TPU the whole (M, N) sweep goes through the Pallas slab-gather
-    # kernel (ops/gather.py: 6.2x the XLA slice-gather rate).
-    if pallas:
-        img_b = jnp.broadcast_to(
-            jnp.arange(n_img, dtype=jnp.int32)[None, :], (m, n_img)
-        )
-        if mesh is not None:
-            desc, inb = sample_normalized_patches_sharded(
-                gray, img_b, proj.astype(jnp.float32), wid, mesh
-            )
-        else:
-            desc, inb = sample_normalized_patches(
-                gray, img_b, proj.astype(jnp.float32), wid
-            )                                      # (M, N, D) bf16, (M, N)
-    else:
-        gray_s = gray.astype(jnp.bfloat16)
+    # bf16: half the bytes gathered, and its ~half-ULP-of-a-pixel
+    # quantization is the same scale as the uint8 grayscale rounding already
+    # applied.
+    gray_s = gray.astype(jnp.bfloat16)
 
-        def view_scan(_, i):
-            patches_i, inb_i = bilinear_sample_patches(
-                gray_s[i], proj[:, i], wid
-            )
-            desc_i = normalize_descriptors(patches_i)
-            return None, (desc_i.astype(jnp.bfloat16), inb_i)
+    def view_scan(_, i):
+        patches_i, inb_i = bilinear_sample_patches(gray_s[i], proj[:, i], wid)
+        desc_i = normalize_descriptors(patches_i)
+        return None, (desc_i.astype(jnp.bfloat16), inb_i)
 
-        _, (desc_t, inb_t) = jax.lax.scan(view_scan, None, jnp.arange(n_img))
-        desc = jnp.transpose(desc_t, (1, 0, 2))   # (M, N, D) bf16
-        inb = jnp.transpose(inb_t)                # (M, N)
+    _, (desc_t, inb_t) = jax.lax.scan(view_scan, None, jnp.arange(n_img))
+    desc = jnp.transpose(desc_t, (1, 0, 2))   # (M, N, D) bf16
+    inb = jnp.transpose(inb_t)                # (M, N)
 
     ref_ix = ref_idx[:, None, None].astype(jnp.int32)
     ref_desc = jnp.take_along_axis(
@@ -200,8 +172,6 @@ def photo_consistency(
 
 def _photo_consistency_gated(
     gray, K, R, t, centers, ref_idx, min_ncc, wid: int, max_views: int,
-    pallas: bool = False,
-    mesh=None,
 ):
     """Top-(max_views-1) geometric view selection + one stacked gather sweep.
 
@@ -255,24 +225,10 @@ def _photo_consistency_gated(
     pix_v = jnp.take_along_axis(
         proj, vidx[..., None].repeat(2, -1), axis=1
     )                                                     # (M, V, 2)
-    if pallas:
-        # Pallas slab-gather kernel (ops/gather.py): 6.2x the XLA
-        # slice-gather rate on the sweep's M x V samples.  Under a mesh the
-        # kernel runs per-device via shard_map (round 4 — previously the
-        # sharded round silently fell back to the XLA gather).
-        if mesh is not None:
-            desc, inb_v = sample_normalized_patches_sharded(
-                gray, vidx, pix_v.astype(jnp.float32), wid, mesh
-            )
-        else:
-            desc, inb_v = sample_normalized_patches(
-                gray, vidx, pix_v.astype(jnp.float32), wid
-            )                                             # (M, V, D) bf16
-    else:
-        patches, inb_v = bilinear_sample_patches_stack(
-            gray.astype(jnp.bfloat16), vidx, pix_v, wid
-        )
-        desc = normalize_descriptors(patches).astype(jnp.bfloat16)  # (M, V, D)
+    patches, inb_v = bilinear_sample_patches_stack(
+        gray.astype(jnp.bfloat16), vidx, pix_v, wid
+    )
+    desc = normalize_descriptors(patches).astype(jnp.bfloat16)  # (M, V, D)
     ncc = (
         jnp.einsum(
             "mvd,md->mv", desc, desc[:, 0],

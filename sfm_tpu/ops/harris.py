@@ -1,16 +1,15 @@
 """Harris corner response + detection, batched over images.
 
-TPU-native replacement for the reference's ``cv2.cornerHarris(block=2,
+Batched replacement for the reference's ``cv2.cornerHarris(block=2,
 ksize=3, k=0.04)`` + dilate + 1%-of-max threshold frontend
 (HarrisFeatures.py:135-161).  Differences by design:
 
 - fully batched over the image stack, float32, static shapes;
 - non-max suppression + top-K corner selection instead of a boolean corner
   image, yielding fixed-capacity (K, 2) corner arrays with validity masks —
-  the static-shape currency of the whole TPU pipeline;
-- the response computation is a single fused Pallas kernel on TPU (one
-  HBM->VMEM round trip for a whole image: Sobel gradients, structure tensor,
-  box window and response never leave VMEM); a pure-XLA fallback runs on CPU.
+  the static-shape currency of the whole batched pipeline;
+- the response is a chain of shifted adds (Sobel gradients, structure
+  tensor, box window) that XLA fuses into one pass over the stack.
 
 Scale normalization of the Sobel taps is irrelevant for detection: the Harris
 response scales as s^4 in both det(M) and trace(M)^2, so k and the relative
@@ -23,18 +22,10 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from sfm_tpu.utils.platform import use_pallas as _use_pallas
 
 
 def _shift(img, dy, dx):
-    """Shift a 2-D (or batched ...HW) image by (dy, dx), zero-filled.
-
-    Static pad+slice only — keeps the op legal inside Pallas TPU kernels
-    (dynamic_slice does not lower there).
-    """
+    """Shift a 2-D (or batched ...HW) image by (dy, dx), zero-filled."""
     pad = [(0, 0)] * (img.ndim - 2) + [(1, 1), (1, 1)]
     p = jnp.pad(img, pad)
     h, w = img.shape[-2], img.shape[-1]
@@ -76,133 +67,14 @@ def _harris_math(gray, k):
     return det - k * trace * trace
 
 
-def _harris_kernel(hbm_ref, out_ref, scratch, sem, *, k, tile_h):
-    """Fused Harris response over one row tile, images staying in HBM.
-
-    The caller zero-pads 4 rows top+bottom, so each (tile_h + 8)-row slab is
-    DMA'd HBM->VMEM at a static in-slab offset (8-row-aligned slab for TPU
-    sublane tiling) and the vertical stencil halo is exact.  Neighbour access is pltpu.roll (lane/sublane rotate — Mosaic
-    cannot lower pad/concat/dynamic_slice in-kernel); horizontal wrap-around
-    contaminates only the 2 border columns, which are zeroed (border corners
-    are rejected downstream via ``detect_corners(border=...)`` anyway).
-    """
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    copy = pltpu.make_async_copy(
-        hbm_ref.at[i, pl.ds(j * tile_h, tile_h + 8), :],
-        scratch,
-        sem,
-    )
-    copy.start()
-    copy.wait()
-    g = scratch[:]  # (tile_h + 8, W)
-
-    def sh(x, dy, dx):
-        h, w = x.shape
-        if dy:
-            x = pltpu.roll(x, (-dy) % h, 0)
-        if dx:
-            x = pltpu.roll(x, (-dx) % w, 1)
-        return x
-
-    def sobel(img):
-        tl = sh(img, -1, -1)
-        tc = sh(img, -1, 0)
-        tr = sh(img, -1, 1)
-        ml = sh(img, 0, -1)
-        mr = sh(img, 0, 1)
-        bl = sh(img, 1, -1)
-        bc = sh(img, 1, 0)
-        br = sh(img, 1, 1)
-        ix = (tr + 2.0 * mr + br) - (tl + 2.0 * ml + bl)
-        iy = (bl + 2.0 * bc + br) - (tl + 2.0 * tc + tr)
-        return ix, iy
-
-    def box3(img):
-        return (
-            sh(img, -1, -1) + sh(img, -1, 0) + sh(img, -1, 1)
-            + sh(img, 0, -1) + img + sh(img, 0, 1)
-            + sh(img, 1, -1) + sh(img, 1, 0) + sh(img, 1, 1)
-        )
-
-    ix, iy = sobel(g)
-    sxx = box3(ix * ix)
-    syy = box3(iy * iy)
-    sxy = box3(ix * iy)
-    det = sxx * syy - sxy * sxy
-    trace = sxx + syy
-    resp = (det - k * trace * trace)[4 : 4 + tile_h]
-    w = g.shape[1]
-    xs = jax.lax.broadcasted_iota(jnp.int32, (tile_h, w), 1)
-    col_ok = (xs >= 2) & (xs < w - 2)
-    out_ref[0] = jnp.where(col_ok, resp, 0.0)
-
-
-def _pick_tile(h: int, w: int, max_tile: int = 160) -> int:
-    """Largest row-tile that is a multiple of 8 and fits VMEM (0 = infeasible).
-
-    The kernel keeps ~23 live (tile+8, w) f32 buffers on the Mosaic scoped-
-    vmem stack (measured: tile 160 at w=1280 reported a 19.65 MB stack
-    against the 16 MB limit), so the row budget must scale with 1/width —
-    at w=640 the 160-row tile stands, at w=1280 it shrinks to 80.  The tile
-    need NOT divide h: ``harris_response`` pads the row axis up to a tile
-    multiple and slices the result back (VERDICT r2 weak #2 — heights like
-    482 used to silently take the slow XLA path).  Returns 0 only when even
-    an 8-row slab would blow the scoped-vmem budget (w beyond ~8k px)."""
-    budget_rows = int(12e6 / (23 * 4 * w)) - 8
-    if budget_rows < 8:
-        return 0
-    cap = min(max_tile, budget_rows // 8 * 8)
-    # Minimize total DMA'd rows ceil(h/t)*(t+8) — accounts for both the
-    # 8-row halo re-read per tile and the padded waste rows; ties prefer
-    # the larger tile (fewer grid steps).
-    best, best_cost = 8, None
-    for t in range(8, cap + 1, 8):
-        cost = -(-h // t) * (t + 8)
-        if best_cost is None or cost <= best_cost:
-            best, best_cost = t, cost
-    return best
-
-
-@functools.partial(jax.jit, static_argnames=("k", "use_pallas"))
-def harris_response(gray, k: float = 0.04, use_pallas=None):
+@functools.partial(jax.jit, static_argnames=("k",))
+def harris_response(gray, k: float = 0.04):
     """Harris corner response for a stack of grayscale images (N, H, W)."""
-    gray = gray.astype(jnp.float32)
-    n, h, w = gray.shape
-    tile_h = _pick_tile(h, w)
-    if _use_pallas(use_pallas) and tile_h:
-        # Row axis padded up to a tile multiple (zero rows beyond h are
-        # computed and sliced off) so ANY height takes the fused kernel.
-        h_pad = -(-h // tile_h) * tile_h
-        padded = jnp.pad(gray, ((0, 0), (4, 4 + h_pad - h), (0, 0)))
-        kern = functools.partial(_harris_kernel, k=k, tile_h=tile_h)
-        out = pl.pallas_call(
-            kern,
-            grid=(n, h_pad // tile_h),
-            in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-            out_specs=pl.BlockSpec(
-                (1, tile_h, w), lambda i, j: (i, j, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            out_shape=jax.ShapeDtypeStruct((n, h_pad, w), jnp.float32),
-            scratch_shapes=[
-                pltpu.VMEM((tile_h + 8, w), jnp.float32),
-                pltpu.SemaphoreType.DMA,
-            ],
-        )(padded)
-        return out[:, :h] if h_pad != h else out
-    if _use_pallas(use_pallas) and not tile_h:
-        import logging
-
-        logging.getLogger("sfm_tpu").warning(
-            "harris_response: width %d exceeds the Pallas scoped-vmem row "
-            "budget; falling back to the XLA path", w,
-        )
-    return _harris_math(gray, k)
+    return _harris_math(gray.astype(jnp.float32), k)
 
 
 @functools.partial(
-    jax.jit, static_argnames=("max_corners", "nms_radius", "border", "k", "use_pallas")
+    jax.jit, static_argnames=("max_corners", "nms_radius", "border", "k")
 )
 def detect_corners(
     gray,
@@ -211,7 +83,6 @@ def detect_corners(
     rel_threshold: float = 0.01,
     border: int = 0,
     k: float = 0.04,
-    use_pallas=None,
 ):
     """Detect top-K Harris corners per image.
 
@@ -230,7 +101,7 @@ def detect_corners(
       valid: (N, K) bool validity mask.
       response: (N, H, W) float32 Harris response (for diagnostics).
     """
-    resp = harris_response(gray, k=k, use_pallas=use_pallas)
+    resp = harris_response(gray, k=k)
     n, h, w = resp.shape
     win = 2 * nms_radius + 1
     # NMS on per-pixel-unique keys instead of raw responses: equal responses
@@ -242,8 +113,8 @@ def detect_corners(
     # response differences — ties (and only near-ties) break by pixel id.
     # The id field is sized so ids are unique within any NMS window (max id
     # spread = (win-1)*(w+1)), making "exactly one peak per window" exact.
-    # 22x faster than the argsort-rank formulation on TPU (full sort of
-    # N*H*W vs one elementwise pass).
+    # One elementwise pass instead of an argsort-rank formulation (a full
+    # sort of N*H*W).
     # id_bits grows with image width: 13 bits at w=640 (~0.06% worst-case
     # relative response perturbation), 15 at w~3200 (~0.4%).  Keep >=5
     # mantissa bits of response (<=18 id bits, ~3% perturbation, widths to

@@ -1,10 +1,10 @@
 """NCC scoring and bilinear patch sampling.
 
 ``ncc_scores`` is the matcher's hot op: all-pairs correlation of two
-normalized descriptor sets as one MXU matmul (replaces the reference's FLANN
+normalized descriptor sets as one matmul (replaces the reference's FLANN
 k-d forest at utils.py:180-185 and the O(N*M) Python NCC loop at
 HarrisFeatures.py:16-37 — at a few thousand corners per 640x480 image, a
-dense matmul on the systolic array beats tree search by orders of magnitude).
+dense matmul on the tensor cores beats tree search by orders of magnitude).
 
 ``bilinear_sample_patches`` is MVS's photo-consistency gather: sample square
 patches at *fractional* pixel centers (projected 3-D points) with bilinear
@@ -21,12 +21,12 @@ import jax.numpy as jnp
 
 @jax.jit
 def ncc_scores(desc1, desc2):
-    """(…, K1, D) x (…, K2, D) -> (…, K1, K2) correlation matrix on the MXU.
+    """(…, K1, D) x (…, K2, D) -> (…, K1, K2) correlation matrix.
 
-    Runs at DEFAULT (bf16-pass) precision deliberately: correlation ranking
-    only needs ~2 decimal digits and this is the matcher's FLOPs hot spot —
-    the library's global 'highest' default (see sfm_tpu/__init__.py) is for
-    the geometry path, not here.
+    Runs at DEFAULT precision deliberately (TF32 on a Hopper GPU for f32
+    operands, ~3 decimal digits): correlation ranking only needs ~2 and
+    this is the matcher's FLOPs hot spot — the library's global 'highest'
+    default (see sfm_tpu/__init__.py) is for the geometry path, not here.
     """
     return jnp.einsum(
         "...id,...jd->...ij",
@@ -42,11 +42,10 @@ def bilinear_sample_patches(gray, centers, wid: int = 5):
     """Sample (2*wid+1)^2 patches at fractional centers with bilinear interp.
 
     Gather strategy (the MVS hot path): ONE (side+1)x(side+1) block
-    ``dynamic_slice`` per candidate — XLA lowers the vmap to a slice-gather,
-    which TPUs execute orders of magnitude faster than the naive
-    4-element-gathers-per-pixel formulation — then all bilinear taps are
-    static shifts of the block with per-candidate scalar weights (the
-    fractional offset is constant across a patch).
+    ``dynamic_slice`` per candidate — XLA lowers the vmap to a single
+    slice-gather instead of 4 element gathers per pixel — then all bilinear
+    taps are static shifts of the block with per-candidate scalar weights
+    (the fractional offset is constant across a patch).
 
     Args:
       gray: (H, W) single grayscale image.
@@ -97,11 +96,9 @@ def bilinear_sample_patches_stack(stack, img_idx, centers, wid: int = 5):
     into a stacked (N, H, W) grayscale array.
 
     The stack is viewed as one tall (N*H, W) image and the slice row is
-    ``img*H + y0`` — measured on TPU, XLA's slice-gather costs ~1.1 us per
-    INDEX regardless of slice size, and a 3-D (1, win, win) slice costs
-    2.4x a 2-D one, so folding the image index into the row index keeps the
-    per-window cost at the cheap 2-D rate.  ``y0`` is clipped inside the
-    image, so a window never crosses an image boundary.
+    ``img*H + y0``: folding the image index into the row index makes every
+    window a 2-D slice of one operand.  ``y0`` is clipped inside the image,
+    so a window never crosses an image boundary.
 
     Args:
       stack: (N, H, W); img_idx: (...,) int32; centers: (..., 2) float (x, y).

@@ -5,7 +5,7 @@ The reference's descriptor is a flattened grayscale square patch of side
 by zero-mean NCC (Match, HarrisFeatures.py:16-37).  Here the gather is batched
 over all corners of all images at once, and descriptors are normalized to
 zero-mean unit-norm so that NCC between two descriptors is a plain dot
-product — which turns all-pairs matching into one MXU matmul.
+product — which turns all-pairs matching into one matmul.
 """
 
 from __future__ import annotations
@@ -38,9 +38,8 @@ def extract_patches(gray, corners, wid: int = 5):
     y = corners[..., 1]
     inb = (x >= wid) & (x < w - wid) & (y >= wid) & (y < h - wid)
     # Fold (image, row) into one axis and vmap a 2-D dynamic_slice per
-    # corner: TPU gather cost is per-INDEX (~1.1 us/slice, nearly size
-    # independent), so one (side, side) block slice per corner beats the
-    # side*side-element advanced-index gather ~15% at (48, 4096) corners.
+    # corner: one (side, side) block slice per corner instead of a
+    # side*side-element advanced-index gather.
     # An out-of-border corner's slice may cross an image boundary in the
     # folded layout (defined values, wrong content) — exactly those corners
     # are flagged ``inb=False`` and masked by the caller; dynamic_slice

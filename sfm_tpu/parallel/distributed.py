@@ -1,15 +1,16 @@
-"""Multi-host initialization.
+"""Multi-process initialization.
 
-Single-host multi-chip needs nothing: ``data_mesh()`` over ``jax.devices()``.
-Across hosts, call :func:`initialize_multihost` once per process before any
-jax computation; afterwards ``jax.devices()`` spans the whole pod slice and
-the same mesh/shard_map code paths (ba.sharded, mvs.expand) run unchanged —
-psum/all-gather ride ICI within a slice and DCN across slices, with no
-NCCL/MPI analogue to manage (the reference has no distributed backend at
-all; SURVEY.md §5).
+One process driving all the GPUs of one host needs nothing:
+``data_mesh()`` spans ``jax.devices()``.  A run with several processes
+(one per host, or one per card) calls :func:`initialize_multihost` once per
+process, before any jax computation, with the coordinator's address, the
+process count and this process's id — nothing discovers them.  Afterwards
+``jax.devices()`` spans every process's cards and the same mesh/shard_map
+code paths (ba.sharded, mvs.expand) run unchanged; XLA hands the
+collectives to NCCL.  The reference has no distributed backend at all
+(SURVEY.md §5).
 
-This module is exercised for real only on multi-host pods; CI covers the
-single-process path and argument plumbing.
+CI covers the single-process path and the argument plumbing.
 """
 
 from __future__ import annotations
@@ -26,10 +27,15 @@ def initialize_multihost(
 ) -> dict:
     """Initialize jax.distributed (no-op for a single process).
 
-    With no arguments, relies on the TPU environment's auto-discovery
-    (JAX reads the pod metadata).  Returns a summary dict.
+    A multi-process run must pass all three arguments, e.g.
+    ``coordinator_address="localhost:12345"``.  Returns a summary dict.
     """
     if num_processes is not None and num_processes > 1:
+        if coordinator_address is None or process_id is None:
+            raise ValueError(
+                "a multi-process run needs coordinator_address and "
+                "process_id as well as num_processes"
+            )
         jax.distributed.initialize(
             coordinator_address=coordinator_address,
             num_processes=num_processes,

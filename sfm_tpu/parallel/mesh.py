@@ -3,7 +3,8 @@
 The engine's distribution model (SURVEY.md §5, §7): one logical mesh axis
 "data" over which bulk per-observation / per-candidate work is sharded —
 BA observations (ba.sharded), MVS candidate batches — with small replicated
-state (cameras, reduced systems) assembled via psum over ICI.  The reference
+state (cameras, reduced systems) assembled via psum.  A flat 1-D axis suits
+cards joined all to all (NVLink), where every pair talks at one rate.  The reference
 has no distributed backend at all (its ceiling is 2 forked processes and a
 Manager dict, HarrisFeatures.py:40-65); this module is designed fresh.
 """

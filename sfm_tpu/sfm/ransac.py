@@ -1,7 +1,7 @@
 """Vectorized RANSAC for fundamental-matrix estimation.
 
 Replaces ``cv2.findFundamentalMat(FM_RANSAC)`` (reference utils.py:209-212).
-TPU formulation: a *fixed* batch of H hypotheses is generated and scored in
+Batched formulation: a *fixed* batch of H hypotheses is generated and scored in
 one shot — minimal 8-point samples become one-hot weight vectors, the
 weighted normalized 8-point solver is vmapped across hypotheses, and every
 hypothesis scores every correspondence with the Sampson distance.  Fixed H

@@ -6,13 +6,16 @@ whole per-pair match batches.  Two interchangeable backends with identical
 semantics (mirroring the reference GlobalSet, GlobalSet.py:22-172 — see
 native/trackstore.cpp for the case analysis):
 
-- a C++ union-find hash store (native/libtrackstore.so, built on demand),
-- a pure-Python fallback used when no compiler is available.
+- a C++ union-find hash store (native/libtrackstore.so, compiled from
+  native/trackstore.cpp on first use and whenever the source is newer),
+- a pure-Python fallback used, with a logged warning, when the store cannot
+  be built or loaded.
 """
 
 from __future__ import annotations
 
 import ctypes
+import logging
 import math
 import os
 import subprocess
@@ -22,8 +25,36 @@ import numpy as np
 
 _NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
 _LIB_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "libtrackstore.so"))
+_SRC_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "trackstore.cpp"))
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_TRIED = False
+_log = logging.getLogger("sfm_tpu")
+
+
+def _build_native() -> None:
+    """Compile the store when the library is missing or older than its
+    source.  Portable flags (no -march=native), so a library built on one
+    host also loads on another.  Built under a temporary name and renamed,
+    so concurrent processes never load a half-written file."""
+    if os.path.exists(_LIB_PATH) and (
+        os.path.getmtime(_LIB_PATH) >= os.path.getmtime(_SRC_PATH)
+    ):
+        return
+    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
+    cmd = [
+        os.environ.get("CXX", "g++"), "-O3", "-fPIC", "-shared",
+        "-std=c++17", "-o", tmp, _SRC_PATH,
+    ]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"{' '.join(cmd)} failed: {proc.stderr.strip()}"
+            )
+        os.replace(tmp, _LIB_PATH)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def _load_native() -> Optional[ctypes.CDLL]:
@@ -32,13 +63,7 @@ def _load_native() -> Optional[ctypes.CDLL]:
         return _LIB
     _LIB_TRIED = True
     try:
-        if not os.path.exists(_LIB_PATH):
-            subprocess.run(
-                ["make", "-s"],
-                cwd=os.path.abspath(_NATIVE_DIR),
-                check=True,
-                capture_output=True,
-            )
+        _build_native()
         lib = ctypes.CDLL(_LIB_PATH)
         lib.ts_create.restype = ctypes.c_void_p
         lib.ts_create.argtypes = [ctypes.c_double]
@@ -67,7 +92,10 @@ def _load_native() -> Optional[ctypes.CDLL]:
             ctypes.c_int64,
         ]
         _LIB = lib
-    except Exception:
+    except Exception as e:  # no compiler, build error, unloadable library
+        _log.warning(
+            "native track store unavailable, using the Python store: %s", e
+        )
         _LIB = None
     return _LIB
 

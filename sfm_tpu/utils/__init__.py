@@ -1,2 +1,2 @@
-from sfm_tpu.utils.platform import default_backend, use_pallas  # noqa: F401
+from sfm_tpu.utils.platform import default_backend, resolve_ba_dtype  # noqa: F401
 from sfm_tpu.utils.metrics import Metrics, StageTimer  # noqa: F401

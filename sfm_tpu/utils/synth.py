@@ -9,8 +9,8 @@ spheres), and weak texture.  Geometry is closed-form (ray-sphere), texture
 is a random-Fourier 3-D field (seamless, patch-scale NCC structure), so
 every dense point has an exact ground-truth surface distance.
 
-Used by tests/test_pipeline_scenes.py (CPU envelopes) and
-tools/stress_scale.py (TPU perf at 96x1280x960).
+Used by tests/test_pipeline_scenes.py (CPU envelopes),
+tools/stress_scale.py (96x1280x960) and chip_smoke.py (the 48-view ring).
 """
 
 from __future__ import annotations
@@ -134,9 +134,9 @@ def render_scene(
                      freq_scale=texture_freq_scale)
         for i in range(len(spheres))
     ]
-    Ks, Rs, ts, imgs = [], [], [], []
     ys, xs = np.mgrid[0:h, 0:w]
-    for i in range(n):
+
+    def render_view(i):
         C = centers[i].astype(np.float64)
         R, t = look_at(C, target)
         d_cam = np.stack(
@@ -161,10 +161,18 @@ def render_scene(
         img = np.repeat(
             np.clip(g, 0, 255)[..., None], 3, axis=-1
         ).astype(np.uint8)
-        Ks.append(K)
-        Rs.append(R)
-        ts.append(t)
-        imgs.append(img)
+        return R, t, img
+
+    # Views are independent and numpy releases the GIL in the heavy
+    # array work, so threads render several at once.
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=min(8, max(n, 1))) as pool:
+        views = list(pool.map(render_view, range(n)))
+    Ks = [K] * n
+    Rs = [v[0] for v in views]
+    ts = [v[1] for v in views]
+    imgs = [v[2] for v in views]
     calib = Calibration(
         K=np.stack(Ks), R=np.stack(Rs), t=np.stack(ts),
         names=tuple(f"s{i:04d}" for i in range(n)),
@@ -208,9 +216,8 @@ def write_middlebury_dataset(
     truth (``surface_distance``)."""
     import os
 
-    from PIL import Image
-
     from sfm_tpu.io.calib import Calibration, write_pars
+    from sfm_tpu.io.images import PNM_TYPES, write_pnm
 
     if centers is None:
         centers = ring_rig(16)
@@ -221,7 +228,13 @@ def write_middlebury_dataset(
     names = []
     for i in range(images.shape[0]):
         name = f"{prefix}{i + 1:04d}.{image_type}"
-        Image.fromarray(images[i]).save(os.path.join(out_dir, name))
+        path = os.path.join(out_dir, name)
+        if image_type in PNM_TYPES:
+            write_pnm(path, images[i])
+        else:
+            from PIL import Image
+
+            Image.fromarray(images[i]).save(path)
         names.append(name)
     calib = Calibration(K=calib.K, R=calib.R, t=calib.t, names=tuple(names))
     par_path = os.path.join(out_dir, f"{prefix}_par.txt")

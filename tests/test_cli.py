@@ -122,8 +122,8 @@ class TestTempleStyleDataset:
         from sfm_tpu.utils import synth
 
         ds = str(tmp_path / "templeSparseRing")
-        # 320x240 keeps the CPU run fast; the hardware smoke drives the
-        # 640x480 variant (tools/hw_smoke.py).
+        # 320x240 keeps the CPU run fast; chip_smoke.py drives the
+        # 640x480 variant on the GPU.
         _, par_path, spheres = synth.write_middlebury_dataset(
             ds, centers=synth.ring_rig(16), w=320, h=240
         )

@@ -18,68 +18,18 @@ def checkerboard(h=64, w=64, sq=16):
 class TestHarris:
     def test_response_peaks_at_corners(self):
         img = checkerboard()
-        resp = np.asarray(harris_response(jnp.asarray(img[None]), use_pallas=False))[0]
+        resp = np.asarray(harris_response(jnp.asarray(img[None])))[0]
         # Interior checkerboard crossings are strong positive corners; edge
         # midpoints respond negative; flat square centers ~0.
         assert resp[16, 16] > 0
         assert resp[8, 16] < 0  # vertical edge midpoint
         assert abs(resp[8, 8]) < 1e-3 * resp[16, 16]  # flat region
 
-    def test_pallas_interpret_matches_xla(self):
-        # Run the tiled pallas kernel in interpreter mode on CPU and compare
-        # (two images, 32-row height -> multiple row tiles exercised).
-        from jax.experimental.pallas import tpu as pltpu
-
-        img = np.stack(
-            [checkerboard(32, 128), checkerboard(32, 128, sq=8)]
-        ).astype(np.float32)
-        expect = harris_response(jnp.asarray(img), use_pallas=False)
-        with pltpu.force_tpu_interpret_mode():
-            got = harris_response(jnp.asarray(img), use_pallas=True)
-        # The pallas kernel zeroes the 2 border columns (roll wrap-around);
-        # compare interiors.
-        assert np.allclose(
-            np.asarray(got)[:, 2:-2, 2:-2],
-            np.asarray(expect)[:, 2:-2, 2:-2],
-            atol=1e-3,
-        )
-
-    def test_pallas_odd_height_matches_xla(self):
-        # Heights that are not a multiple of the row tile (e.g. 28, or the
-        # 482-like case from VERDICT r2 weak #2) must still take the Pallas
-        # kernel — the row axis is padded to a tile multiple and sliced back.
-        from jax.experimental.pallas import tpu as pltpu
-        from sfm_tpu.ops.harris import _pick_tile
-
-        assert _pick_tile(482, 640) > 0  # no silent XLA fallback
-        img = checkerboard(28, 128)[None].astype(np.float32)
-        expect = harris_response(jnp.asarray(img), use_pallas=False)
-        with pltpu.force_tpu_interpret_mode():
-            got = harris_response(jnp.asarray(img), use_pallas=True)
-        assert got.shape == expect.shape
-        assert np.allclose(
-            np.asarray(got)[:, 2:-2, 2:-2],
-            np.asarray(expect)[:, 2:-2, 2:-2],
-            atol=1e-3,
-        )
-
-    def test_pick_tile_minimizes_dma_rows(self):
-        from sfm_tpu.ops.harris import _pick_tile
-
-        # Exact-divisor case keeps the big tile (dino 480x640).
-        assert _pick_tile(480, 640) == 160
-        # Infeasible width (scoped-vmem budget below one 8-row slab) -> 0.
-        assert _pick_tile(480, 20000) == 0
-        # Awkward heights pick the tile with least total DMA'd rows.
-        for h in (482, 481, 28, 7):
-            t = _pick_tile(h, 640)
-            assert t > 0 and t % 8 == 0
-
     def test_detect_corners_on_checkerboard(self):
         img = checkerboard()
         corners, valid, _ = detect_corners(
             jnp.asarray(img[None]), max_corners=64, nms_radius=3,
-            border=5, use_pallas=False,
+            border=5,
         )
         c = np.asarray(corners[0])[np.asarray(valid[0])]
         assert len(c) >= 9  # 3x3 interior crossings at 16px grid
@@ -91,7 +41,6 @@ class TestHarris:
         img = checkerboard()
         corners, valid, _ = detect_corners(
             jnp.asarray(img[None]), max_corners=128, nms_radius=4,
-            use_pallas=False,
         )
         c = np.asarray(corners[0])[np.asarray(valid[0])]
         d = np.abs(c[:, None, :] - c[None, :, :]).max(-1)
@@ -193,44 +142,13 @@ class TestMatching:
 
 
 class TestEndToEndFeatures:
-    def test_frontend_pallas_matches_xla(self, dino_images):
-        """detect_and_describe with the slab-gather descriptor path must
-        produce the same corners/validity and near-identical descriptors
-        as the XLA integer-gather path (border = wid+1 keeps every corner's
-        window strictly interior, so both paths read the same pixels)."""
-        from jax.experimental.pallas import tpu as pltpu
-        from sfm_tpu.io import to_gray
-
-        imgs, _ = dino_images
-        gray = jnp.asarray(to_gray(imgs[:2]))
-        cfg = FeatureConfig(max_corners=512)
-        fs0 = detect_and_describe(gray, cfg, use_pallas=False)
-        with pltpu.force_tpu_interpret_mode():
-            fs1 = detect_and_describe(gray, cfg, use_pallas=True)
-        np.testing.assert_array_equal(
-            np.asarray(fs0.valid), np.asarray(fs1.valid)
-        )
-        ok = np.asarray(fs0.valid)
-        np.testing.assert_array_equal(
-            np.asarray(fs0.corners)[ok], np.asarray(fs1.corners)[ok]
-        )
-        err = np.abs(
-            np.asarray(fs0.descriptors)[ok]
-            - np.asarray(fs1.descriptors, np.float32)[ok]
-        )
-        # bf16 sampling: worst case ~2% on low-contrast (dark dino) patches,
-        # mean ~0.1% — far below the Lowe-ratio margin the matcher uses.
-        assert err.max() < 4e-2
-        assert err.mean() < 5e-3
-
-
     def test_dino_pair_matching(self, dino_images):
         from sfm_tpu.io import to_gray
 
         imgs, _ = dino_images
         gray = jnp.asarray(to_gray(imgs[:2]))
         cfg = FeatureConfig(max_corners=1024, max_matches=512)
-        fs = detect_and_describe(gray, cfg, use_pallas=False)
+        fs = detect_and_describe(gray, cfg)
         assert fs.num_images == 2
         n_valid = np.asarray(fs.valid).sum(1)
         assert np.all(n_valid > 100), n_valid
@@ -264,223 +182,49 @@ def test_lowe_ratio_default_matches_documentation():
     assert "sweep_lowe" in parity
 
 
-class TestSlabGather:
-    """Pallas slab-gather descriptor kernel (ops/gather.py) vs the XLA
-    slice-gather path it replaces — same conventions, interpret mode."""
+class TestPlainReferences:
+    """Device kernels against the float64 numpy references of
+    sfm_tpu.ops.reference (chip_smoke.py repeats these at real widths)."""
 
-    def _case(self, m=256, n_img=4, h=96, w=640, wid=5, seed=0):
-        rng = np.random.default_rng(seed)
-        gray = (rng.random((n_img, h, w)) * 255).astype(np.float32)
-        img = rng.integers(0, n_img, m).astype(np.int32)
-        xs = rng.uniform(0, w, m).astype(np.float32)  # incl. out-of-bounds
-        ys = rng.uniform(0, h, m).astype(np.float32)
-        return gray, img, np.stack([xs, ys], 1)
-
-    def test_matches_xla_path(self):
-        from jax.experimental.pallas import tpu as pltpu
-        from sfm_tpu.ops.gather import sample_normalized_patches
-        from sfm_tpu.ops.ncc import bilinear_sample_patches_stack
-
-        gray, img, ctr = self._case()
-        patches, inb_want = bilinear_sample_patches_stack(
-            jnp.asarray(gray, jnp.bfloat16), jnp.asarray(img),
-            jnp.asarray(ctr), 5,
-        )
-        want = np.asarray(normalize_descriptors(patches))
-        with pltpu.force_tpu_interpret_mode():
-            got, inb = sample_normalized_patches(
-                jnp.asarray(gray), jnp.asarray(img), jnp.asarray(ctr), 5
-            )
-        np.testing.assert_array_equal(np.asarray(inb), np.asarray(inb_want))
-        ok = np.asarray(inb)
-        err = np.abs(np.asarray(got, np.float32)[ok] - want[ok])
-        assert err.max() < 2e-2  # bf16 patch + bf16 descriptor rounding
-
-    def test_photo_consistency_pallas_parity(self):
-        from jax.experimental.pallas import tpu as pltpu
-        from sfm_tpu.mvs.photoconsistency import photo_consistency
-
-        rng = np.random.default_rng(1)
-        n_img, h, w, m = 6, 96, 640, 128
-        gray = jnp.asarray((rng.random((n_img, h, w)) * 255), jnp.float32)
-        K = jnp.asarray(
-            np.tile(np.array([[300.0, 0, w / 2], [0, 300.0, h / 2],
-                              [0, 0, 1]], np.float32), (n_img, 1, 1)))
-        R = jnp.asarray(np.tile(np.eye(3, dtype=np.float32), (n_img, 1, 1)))
-        t = jnp.asarray(np.tile(np.array([0, 0, 0.6], np.float32),
-                                (n_img, 1)))
-        centers = jnp.asarray(
-            rng.standard_normal((m, 3)).astype(np.float32) * 0.01)
-        ref = jnp.asarray(rng.integers(0, n_img, m), jnp.int32)
-        for max_views in (0, 4):  # full sweep and the PMVS-gated path
-            vis0, proj0, s0, c0 = photo_consistency(
-                gray, K, R, t, centers, ref, 0.4, 5, max_views,
-                use_pallas=False,
-            )
-            with pltpu.force_tpu_interpret_mode():
-                vis1, proj1, s1, c1 = photo_consistency(
-                    gray, K, R, t, centers, ref, 0.4, 5, max_views,
-                    use_pallas=True,
-                )
-            # bf16 NCC near the 0.4 threshold can flip a rare borderline
-            # view; scores of agreeing candidates must match tightly.
-            agree = np.asarray(c0) == np.asarray(c1)
-            assert agree.mean() > 0.98
-            assert np.allclose(
-                np.asarray(s0)[agree], np.asarray(s1)[agree], atol=2e-2
-            )
-
-
-def test_pick_tile_respects_vmem_budget():
-    """The Pallas Harris tile must shrink with image width: ~23 live
-    (tile+8, w) f32 buffers sit on the Mosaic scoped-vmem stack (16 MB);
-    at w=1280 a 160-row tile overflows it (observed OOM at 19.65 MB)."""
-    from sfm_tpu.ops.harris import _pick_tile
-
-    assert _pick_tile(480, 640) == 160          # dinoRing: unchanged
-    t = _pick_tile(960, 1280)
-    assert t and t <= 88                        # 2x res: fits the budget
-    assert 23 * 4 * 1280 * (t + 8) < 14e6
-    t4k = _pick_tile(2160, 4096)
-    assert t4k and 23 * 4 * 4096 * (t4k + 8) < 14e6
-
-
-class TestSlabGatherWidthPadding:
-    """Round 4: the kernel pads the lane axis internally, so arbitrary image
-    widths run the Pallas path instead of silently falling back to the
-    ~6x-slower XLA gather (VERDICT r3 Weak #3)."""
-
-    @pytest.mark.parametrize("w", [200, 320, 1000])
-    def test_non_multiple_width_matches_xla(self, w):
-        from jax.experimental.pallas import tpu as pltpu
-
-        from sfm_tpu.ops.gather import sample_normalized_patches, supports
-        from sfm_tpu.ops.ncc import bilinear_sample_patches_stack
-
-        assert supports(w, 5)
-        rng = np.random.default_rng(7)
-        n_img, h, m = 3, 64, 192
-        gray = (rng.random((n_img, h, w)) * 255).astype(np.float32)
-        img = rng.integers(0, n_img, m).astype(np.int32)
-        ctr = np.stack(
-            [rng.uniform(0, w, m), rng.uniform(0, h, m)], 1
-        ).astype(np.float32)
-        patches, inb_want = bilinear_sample_patches_stack(
-            jnp.asarray(gray, jnp.bfloat16), jnp.asarray(img),
-            jnp.asarray(ctr), 5,
-        )
-        want = np.asarray(normalize_descriptors(patches))
-        with pltpu.force_tpu_interpret_mode():
-            got, inb = sample_normalized_patches(
-                jnp.asarray(gray), jnp.asarray(img), jnp.asarray(ctr), 5
-            )
-        np.testing.assert_array_equal(np.asarray(inb), np.asarray(inb_want))
-        ok = np.asarray(inb)
-        err = np.abs(np.asarray(got, np.float32)[ok] - want[ok])
-        assert err.max() < 2e-2
-
-    def test_pick_samples_respects_vmem_budget(self):
-        """The per-grid-step sample count S shrinks with image width so the
-        (S, 24, w_pad) bf16 slab scratch stays under the Mosaic scoped-vmem
-        budget — a 4K-wide frame previously exceeded 16 MB and failed
-        Mosaic compilation with no XLA fallback (ADVICE r4)."""
-        from sfm_tpu.ops import gather
-
-        assert gather._pick_samples(gather._pad_width(640), 128) == 128
-        for w in (1280, 1920, 4096, 8192):
-            s = gather._pick_samples(gather._pad_width(w), 128)
-            assert s >= 8 and s % 8 == 0
-            assert (
-                s * gather.ROWS * gather._pad_width(w) * 2
-                <= gather._SLAB_BUDGET_BYTES
-            )
-            assert gather.supports(w, 5)
-
-    def test_wide_image_shrinks_samples_and_matches_xla(self):
-        from jax.experimental.pallas import tpu as pltpu
-
-        from sfm_tpu.ops import gather
-        from sfm_tpu.ops.ncc import bilinear_sample_patches_stack
-
-        w = 4096
-        assert gather._pick_samples(gather._pad_width(w), 128) < 128
-        rng = np.random.default_rng(11)
-        n_img, h, m = 2, 64, 48
-        gray = (rng.random((n_img, h, w)) * 255).astype(np.float32)
-        img = rng.integers(0, n_img, m).astype(np.int32)
-        ctr = np.stack(
-            [rng.uniform(0, w, m), rng.uniform(0, h, m)], 1
-        ).astype(np.float32)
-        patches, inb_want = bilinear_sample_patches_stack(
-            jnp.asarray(gray, jnp.bfloat16), jnp.asarray(img),
-            jnp.asarray(ctr), 5,
-        )
-        want = np.asarray(normalize_descriptors(patches))
-        with pltpu.force_tpu_interpret_mode():
-            got, inb = gather.sample_normalized_patches(
-                jnp.asarray(gray), jnp.asarray(img), jnp.asarray(ctr), 5
-            )
-        np.testing.assert_array_equal(np.asarray(inb), np.asarray(inb_want))
-        ok = np.asarray(inb)
-        err = np.abs(np.asarray(got, np.float32)[ok] - want[ok])
-        assert err.max() < 2e-2
-
-    def test_residual_fallback_is_counted_not_silent(self):
-        from sfm_tpu.mvs.photoconsistency import photo_consistency
-        from sfm_tpu.ops import gather
-
-        rng = np.random.default_rng(3)
-        n_img, h, w, m = 3, 48, 320, 64
-        gray = jnp.asarray((rng.random((n_img, h, w)) * 255), jnp.float32)
-        K = jnp.asarray(np.tile(np.array(
-            [[200.0, 0, w / 2], [0, 200.0, h / 2], [0, 0, 1]], np.float32),
-            (n_img, 1, 1)))
-        R = jnp.asarray(np.tile(np.eye(3, dtype=np.float32), (n_img, 1, 1)))
-        t = jnp.asarray(np.tile(np.array([0, 0, 0.6], np.float32),
-                                (n_img, 1)))
-        centers = jnp.asarray(
-            rng.standard_normal((m, 3)).astype(np.float32) * 0.01)
-        ref = jnp.asarray(rng.integers(0, n_img, m), jnp.int32)
-        before = len(gather.fallbacks)
-        # wid=9 exceeds the 24-row slab -> XLA fallback, counted + warned.
-        with pytest.warns(UserWarning, match="slab-gather"):
-            photo_consistency(
-                gray, K, R, t, centers, ref, 0.4, 9, 0, use_pallas=True
-            )
-        new = gather.fallbacks[before:]
-        assert any(
-            f["where"] == "mvs.photo_consistency" and f["wid"] == 9
-            for f in new
-        )
-
-
-def test_slab_gather_chunked_matches_single_call(monkeypatch):
-    """Batches beyond _MAX_SAMPLES_PER_CALL run as a sequential lax.map of
-    bounded kernel calls (round 4: the unchunked (samples, 11, 11) out
-    buffer is tile-padded ~17x and OOMed the chip at quality-harness
-    sizes).  Chunked output must equal the single-call path bitwise."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from sfm_tpu.ops import gather
-
-    rng = np.random.default_rng(9)
-    n_img, h, w, m = 3, 64, 640, 203
-    gray = jnp.asarray((rng.random((n_img, h, w)) * 255), jnp.float32)
-    img = jnp.asarray(rng.integers(0, n_img, m), jnp.int32)
-    ctr = jnp.asarray(
-        np.stack([rng.uniform(0, w, m), rng.uniform(0, h, m)], 1),
-        jnp.float32,
+    @pytest.mark.parametrize(
+        "h,w", [(480, 640), (482, 640), (64, 1280), (30, 200)]
     )
-    with pltpu.force_tpu_interpret_mode():
-        d1, i1 = gather.sample_normalized_patches(gray, img, ctr, 5, S=8)
-        # 32-sample cap with S=8 -> chunk_steps=4; m=203 -> 26 steps -> 7
-        # chunks with a padded tail.
-        monkeypatch.setattr(gather, "_MAX_SAMPLES_PER_CALL", 32)
-        gather.sample_normalized_patches._clear_cache()
-        d2, i2 = gather.sample_normalized_patches(gray, img, ctr, 5, S=8)
-    monkeypatch.undo()
-    gather.sample_normalized_patches._clear_cache()
-    np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
-    np.testing.assert_array_equal(
-        np.asarray(d1, np.float32), np.asarray(d2, np.float32)
-    )
+    def test_harris_matches_numpy_stencil(self, h, w):
+        from sfm_tpu.ops import reference
+
+        rng = np.random.default_rng(h * w)
+        gray = (rng.random((2, h, w)) * 255).astype(np.float32)
+        got = np.asarray(harris_response(jnp.asarray(gray)), np.float64)
+        want = reference.harris_response(gray)
+        assert got.shape == want.shape == (2, h, w)
+        scale = np.abs(want).max(axis=(1, 2), keepdims=True)
+        assert np.all(np.abs(got - want) <= 1e-4 * scale)
+
+    @pytest.mark.parametrize("w", [200, 320, 640, 1000, 4096])
+    def test_sampler_matches_numpy_bilinear(self, w):
+        """The photo-consistency sampler (bf16 stack, as the MVS sweep
+        uses it) against bilinear sampling of the same quantized stack."""
+        from sfm_tpu.ops import reference
+        from sfm_tpu.ops.ncc import bilinear_sample_patches_stack
+
+        rng = np.random.default_rng(w)
+        n_img, h, m = 3, 48, 256
+        stack = jnp.asarray(rng.random((n_img, h, w)) * 255, jnp.bfloat16)
+        img = rng.integers(0, n_img, m).astype(np.int32)
+        ctr = np.stack(  # includes out-of-bounds centers
+            [rng.uniform(-4, w + 4, m), rng.uniform(-4, h + 4, m)], 1
+        ).astype(np.float32)
+        patches, inb = bilinear_sample_patches_stack(
+            stack, jnp.asarray(img), jnp.asarray(ctr), 5
+        )
+        desc = np.asarray(normalize_descriptors(patches), np.float64)
+        want_p, want_inb = reference.bilinear_patches(
+            np.asarray(stack.astype(jnp.float32)), img, ctr, 5
+        )
+        np.testing.assert_array_equal(np.asarray(inb), want_inb)
+        assert want_inb.any() and not want_inb.all()
+        np.testing.assert_allclose(
+            np.asarray(patches, np.float64), want_p, atol=1e-3
+        )
+        err = np.abs(desc - reference.normalize(want_p))[want_inb]
+        assert err.max() < 1e-4

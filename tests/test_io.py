@@ -85,3 +85,44 @@ def test_write_pars_roundtrip_exact(tmp_path):
     np.testing.assert_array_equal(back.K, cal.K)
     np.testing.assert_array_equal(back.R, cal.R)
     np.testing.assert_array_equal(back.t, cal.t)
+
+
+@pytest.mark.parametrize("shape,magic", [((7, 5), b"P5"), ((7, 5, 3), b"P6")])
+def test_pnm_round_trip(tmp_path, rng, shape, magic):
+    from sfm_tpu.io import read_pnm, write_pnm
+
+    img = rng.integers(0, 256, shape).astype(np.uint8)
+    path = str(tmp_path / "a.pnm")
+    write_pnm(path, img)
+    with open(path, "rb") as f:
+        assert f.read(2) == magic
+    back = read_pnm(path)
+    assert back.dtype == np.uint8
+    np.testing.assert_array_equal(back, img)
+    # load_images reads PNM without PIL and returns RGB for both kinds.
+    imgs, _ = load_images(str(tmp_path), "pnm")
+    rgb = img if img.ndim == 3 else np.repeat(img[..., None], 3, axis=-1)
+    np.testing.assert_array_equal(imgs[0], rgb)
+
+
+def test_pnm_header_comments_and_16bit(tmp_path):
+    from sfm_tpu.io import read_pnm
+
+    vals = np.array([[0, 65535, 32768]], ">u2")
+    path = str(tmp_path / "b.pgm")
+    with open(path, "wb") as f:
+        f.write(b"P5\n# a comment\n3 1\n65535\n" + vals.tobytes())
+    np.testing.assert_array_equal(read_pnm(path), [[0, 255, 128]])
+    with open(path, "wb") as f:
+        f.write(b"P2\n3 1\n255\n0 1 2\n")
+    with pytest.raises(ValueError, match="binary"):
+        read_pnm(path)
+
+
+def test_non_pnm_without_pillow_names_format(tmp_path, monkeypatch):
+    import sys
+
+    (tmp_path / "x.png").write_bytes(b"\x89PNG")
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(ImportError, match=r"\.png"):
+        load_images(str(tmp_path), "png")

@@ -150,6 +150,38 @@ class TestPhotoConsistency:
         # On-plane points still have enough support through the gate.
         assert (cnt_g >= 2).mean() > 0.8
 
+    def test_gated_sweep_over_all_views_matches_ungated(self, rng):
+        """The gated sweep (stacked gather over a per-candidate view list)
+        forced to take every view must reproduce the ungated per-view
+        sweep: same visibility, counts and scores."""
+        import jax
+
+        from sfm_tpu.mvs.photoconsistency import _photo_consistency_gated
+
+        n = 8
+        gray, K, R, t = self._setup(rng, n_views=n)
+        pts = np.stack(
+            [rng.uniform(-0.3, 0.3, 64), rng.uniform(-0.2, 0.2, 64),
+             np.full(64, 2.0)], -1).astype(np.float32)
+        args = (
+            jnp.asarray(gray), jnp.asarray(K.astype(np.float32)),
+            jnp.asarray(R.astype(np.float32)), jnp.asarray(t.astype(np.float32)),
+            jnp.asarray(pts), jnp.asarray(rng.integers(0, n, 64), jnp.int32),
+            0.7,
+        )
+        vis0, proj0, s0, c0 = photo_consistency(*args, 5, 0)
+        gated = jax.jit(
+            _photo_consistency_gated, static_argnames=("wid", "max_views")
+        )
+        vis1, proj1, s1, c1 = gated(*args, wid=5, max_views=n)
+        np.testing.assert_array_equal(np.asarray(vis1), np.asarray(vis0))
+        np.testing.assert_array_equal(np.asarray(c1), np.asarray(c0))
+        # Mean NCC over the same views, contracted from bf16 descriptors in
+        # another view order and batch layout: equal to bf16 round-off.
+        np.testing.assert_allclose(np.asarray(s1), np.asarray(s0), atol=5e-4)
+        np.testing.assert_allclose(np.asarray(proj1), np.asarray(proj0))
+        assert (np.asarray(c0) >= 2).mean() > 0.5
+
     def test_out_of_bounds_invisible(self, rng):
         gray, K, R, t = self._setup(rng)
         pts = np.asarray([[50.0, 50.0, 2.0]], np.float32)  # projects far out

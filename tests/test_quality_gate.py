@@ -14,7 +14,7 @@ that are CPU-feasible:
   cloud's PMVS-rule pass rate >= the reference cloud's, and median
   ref->ours distance <= 1.5% of the reference bbox diagonal.
 
-The 48-frame criteria stay in quality.py (TPU, one-shot): they re-run the
+The 48-frame criteria stay in quality.py (accelerator, one-shot): they re-run the
 whole-dataset pipeline and are too heavy for every CI round.
 """
 

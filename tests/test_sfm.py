@@ -235,8 +235,7 @@ def test_pairs_per_step_blocks_match_serial(dino_images, dino_calib):
     """The vmapped-block pair map (SfmConfig.pairs_per_step > 1) must
     reproduce the serial lax.map results exactly, including the recycled-
     row padding when the pair count is not a block multiple (round 4; the
-    TPU default stays 1 — see the config docstring's compile-time negative
-    result)."""
+    default stays 1 — see the config docstring's negative result)."""
     import numpy as np
 
     from sfm_tpu.config import FeatureConfig, PipelineConfig, SfmConfig

@@ -136,77 +136,22 @@ def test_sfm_sharded_uneven_image_count(dino_images, dino_calib):
     np.testing.assert_allclose(r1.world, r2.world, atol=1e-7)
 
 
-def test_slab_gather_sharded_matches_single():
-    """Round 4: the Pallas slab-gather runs per-device via shard_map under a
-    mesh (previously the sharded MVS round silently pinned the ~6x-slower
-    XLA gather).  Interpret mode on the simulated CPU mesh must reproduce
-    the single-device kernel bit-for-bit (same kernel, sliced batch)."""
-    from jax.experimental.pallas import tpu as pltpu
+@pytest.mark.parametrize("max_views", [0, 4])
+def test_photo_consistency_sharded_matches_single(max_views):
+    """photo_consistency on a candidate batch sharded over the 8-device mesh
+    (how the sharded MVS round feeds it: GSPMD partitions the XLA sweep)
+    must reproduce the single-device result, ungated and gated."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from sfm_tpu.ops.gather import (
-        sample_normalized_patches,
-        sample_normalized_patches_sharded,
-    )
-
-    rng = np.random.default_rng(11)
-    # Shapes stay tiny: the TPU INTERPRETER deadlocks under shard_map once
-    # the replicated HBM operand grows past ~150 KB (reproduced at
-    # (2,32,640) and (4,64,256); single-device interpret at w=640 is fine,
-    # and the real-Mosaic W=320/640/1000 paths are hardware-verified in
-    # tools/hw_smoke.py).  The sharding logic under test — per-device
-    # slicing, batch padding, out-spec reassembly — is shape-independent.
-    n_img, h, w, m = 2, 32, 256, 67  # m NOT a multiple of 8: pad path
-    gray = jnp.asarray((rng.random((n_img, h, w)) * 255), jnp.float32)
-    img = jnp.asarray(rng.integers(0, n_img, m), jnp.int32)
-    ctr = jnp.asarray(
-        np.stack([rng.uniform(0, w, m), rng.uniform(0, h, m)], 1), jnp.float32
-    )
-    # S=8 shrinks the kernel's trace-time unroll: interpret-mode cost is
-    # O(grid_steps * S) and S=128 makes this test minutes-long.
-    with pltpu.force_tpu_interpret_mode():
-        d1, i1 = sample_normalized_patches(gray, img, ctr, 5, S=8)
-        d2, i2 = sample_normalized_patches_sharded(
-            gray, img, ctr, 5, data_mesh(), S=8
-        )
-    np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
-    np.testing.assert_array_equal(
-        np.asarray(d1, np.float32), np.asarray(d2, np.float32)
-    )
-
-
-def test_photo_consistency_sharded_pallas_matches_single(monkeypatch):
-    """photo_consistency(mesh=...) must route the sweep through the REAL
-    sharded gather wrapper (sample_normalized_patches_sharded: batch pad,
-    per-device slicing, out-spec reassembly) and reproduce the
-    single-device result exactly, gated and ungated.
-
-    The Pallas kernel payload is swapped for its XLA-equivalent sampler
-    (same contract; kernel-vs-XLA parity is covered by the single-device
-    interpret tests and tools/hw_smoke.py on real hardware) because the
-    TPU interpreter deadlocks under shard_map for larger HBM operands —
-    what THIS test guards is the mesh plumbing, which is payload-
-    independent."""
-    import sfm_tpu.mvs.photoconsistency as pc
     from sfm_tpu.mvs.photoconsistency import photo_consistency
-    from sfm_tpu.ops import gather
-    from sfm_tpu.ops.ncc import bilinear_sample_patches_stack
-    from sfm_tpu.ops.patches import normalize_descriptors
-
-    def xla_sampler(gray, img_idx, centers, wid=5, S=128):
-        patches, inb = bilinear_sample_patches_stack(
-            gray.astype(jnp.bfloat16), img_idx, centers, wid
-        )
-        return normalize_descriptors(patches).astype(jnp.bfloat16), inb
-
-    # gather.sample_normalized_patches_sharded resolves the kernel entry
-    # from its module globals at call time, so patching it routes the REAL
-    # wrapper's per-device calls through the XLA sampler.
-    monkeypatch.setattr(gather, "sample_normalized_patches", xla_sampler)
-    monkeypatch.setattr(pc, "sample_normalized_patches", xla_sampler)
 
     rng = np.random.default_rng(5)
     n_img, h, w, m = 6, 96, 640, 120
-    gray = jnp.asarray((rng.random((n_img, h, w)) * 255), jnp.float32)
+    # One shared scene seen by identical cameras, with per-view noise: the
+    # NCC scores spread around the 0.4 threshold.
+    base = rng.random((h, w)) * 255
+    noise = rng.normal(size=(n_img, h, w)) * rng.uniform(20, 200, (n_img, 1, 1))
+    gray = jnp.asarray(base[None] + noise, jnp.float32)
     K = jnp.asarray(np.tile(np.array(
         [[300.0, 0, w / 2], [0, 300.0, h / 2], [0, 0, 1]], np.float32),
         (n_img, 1, 1)))
@@ -215,15 +160,17 @@ def test_photo_consistency_sharded_pallas_matches_single(monkeypatch):
     centers = jnp.asarray(rng.standard_normal((m, 3)).astype(np.float32) * 0.01)
     ref = jnp.asarray(rng.integers(0, n_img, m), jnp.int32)
     mesh = data_mesh()
-    for max_views in (0, 4):
-        vis1, proj1, s1, c1 = photo_consistency(
-            gray, K, R, t, centers, ref, 0.4, 5, max_views,
-            use_pallas=True,
-        )
-        vis2, proj2, s2, c2 = photo_consistency(
-            gray, K, R, t, centers, ref, 0.4, 5, max_views,
-            use_pallas=True, mesh=mesh,
-        )
-        np.testing.assert_array_equal(np.asarray(vis1), np.asarray(vis2))
-        np.testing.assert_array_equal(np.asarray(c1), np.asarray(c2))
-        assert np.allclose(np.asarray(s1), np.asarray(s2), atol=1e-6)
+    centers_s = jax.device_put(centers, NamedSharding(mesh, P("data", None)))
+    ref_s = jax.device_put(ref, NamedSharding(mesh, P("data")))
+    assert len(centers_s.sharding.device_set) == 8
+    vis1, proj1, s1, c1 = photo_consistency(
+        gray, K, R, t, centers, ref, 0.4, 5, max_views
+    )
+    vis2, proj2, s2, c2 = photo_consistency(
+        gray, K, R, t, centers_s, ref_s, 0.4, 5, max_views
+    )
+    np.testing.assert_array_equal(np.asarray(vis1), np.asarray(vis2))
+    np.testing.assert_array_equal(np.asarray(c1), np.asarray(c2))
+    assert np.allclose(np.asarray(s1), np.asarray(s2), atol=1e-6)
+    c1 = np.asarray(c1)
+    assert 0 < c1.sum() < c1.size * (n_img - 1)

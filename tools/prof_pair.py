@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Dev micro-bench: SfM pair-geometry component costs on TPU."""
+"""Dev micro-bench: SfM pair-geometry component costs."""
 import time
 import numpy as np
 import jax

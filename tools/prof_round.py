@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Dev micro-bench: attribute expansion-round cost on TPU."""
+"""Dev micro-bench: attribute expansion-round cost."""
 import time
 import numpy as np
 import jax

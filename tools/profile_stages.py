@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Dev harness: per-stage timing breakdown of the full pipeline on TPU.
+"""Dev harness: per-stage timing breakdown of the full pipeline.
 
 Not part of the library; used to find the next bottleneck."""
 import json
@@ -18,6 +18,7 @@ def main():
     from sfm_tpu.sfm import structure_from_motion
     from sfm_tpu.ba.run import bundle_adjust
     from sfm_tpu.mvs import dense_reconstruction
+    from sfm_tpu.utils.platform import resolve_ba_dtype
 
     data = "/root/reference/dinoRing"
     calib = read_pars(os.path.join(data, "dinoR_par.txt"))
@@ -25,7 +26,7 @@ def main():
     calib = calib.subset(range(images.shape[0]))
     backend = jax.default_backend()
     config = PipelineConfig(
-        ba=BaConfig(dtype="float32" if backend == "tpu" else "float64"),
+        ba=BaConfig(dtype=resolve_ba_dtype(None, backend)),
         mvs=MvsConfig(),
     )
 
